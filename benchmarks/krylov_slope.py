@@ -1,7 +1,7 @@
 """Device-true per-iteration cost for the standalone Krylov cores.
 
-Round-5 protocol (fixes the round-4 two-point slope, which produced
-NEGATIVE dispatch floors for GMRES): GMRES cost is superlinear in the
+Protocol (a two-point slope produces NEGATIVE dispatch floors for
+GMRES): GMRES cost is superlinear in the
 iteration count — the progressive Krylov buffer grows 256 → 512 → m, and
 per-iteration cost scales with the CURRENT buffer width — so a two-point
 secant between tolerance targets mixes buffer stages and is meaningless.
@@ -21,7 +21,7 @@ targets picked from the converged run's own residual history:
 4. report later buffer stages' marginal cost from stage-crossing
    differences (cap run vs the last stage-1 point), labeled by width.
 
-Wall times are best-of-N fresh dispatches.  Run on the TPU:
+Wall times are best-of-N fresh dispatches.  Run on the GPU:
 
     python benchmarks/krylov_slope.py [--repeat 3]
 
@@ -36,16 +36,11 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
+import jax
 
-os.makedirs(os.path.join(os.path.dirname(__file__), "..", ".jax_cache"),
-            exist_ok=True)
-import jax  # noqa: E402
+from _harness import require_gpu, use_compile_cache  # noqa: E402
 
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(__file__), "..",
-                               ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 TOL = 1e-10
 
@@ -94,6 +89,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--repeat", type=int, default=3)
     args = ap.parse_args()
+    device = require_gpu("krylov_slope.py")
+    use_compile_cache()
 
     from pyamg_tpu.krylov import bicgstab, gmres
     from pyamg_tpu.sparse import device_operator
@@ -172,9 +169,11 @@ def main():
                        "tolerance-targeted points inside buffer stage 1; "
                        "least-squares t(k)=floor+slope*k; best-of-"
                        f"{args.repeat} fresh dispatches",
-           "tol": TOL, "rows": rows}
-    path = os.path.join(os.path.dirname(__file__), "results",
-                        "krylov_slope.json")
+           "tol": TOL, "rows": rows,
+           "device": device}
+    out_dir = os.path.join(os.path.dirname(__file__), "results")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "krylov_slope.json")
     json.dump(out, open(path, "w"), indent=1)
     print(f"# wrote {path}")
 

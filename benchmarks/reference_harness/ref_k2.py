@@ -3,7 +3,7 @@
 Produces the reference setup/solve/iters column for the K=2
 semicoarsening comparison (our side: adaptive_sa_solver with
 num_candidates=2, candidate_iters=5, zebra smoothing — see
-ROUND3_NOTES.md "K≥2 semicoarsening").  Writes /tmp/ref_k2.json.
+benchmarks/reference_harness/our_k2.py).  Writes /tmp/ref_k2.json.
 
 Run:  python benchmarks/reference_harness/ref_k2.py [grid]
 """

@@ -1,6 +1,6 @@
-"""pyamg_tpu — a TPU-native algebraic multigrid framework.
+"""pyamg_tpu — an accelerator-native algebraic multigrid framework.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of PyAMG
+A ground-up JAX/XLA re-design of the capabilities of PyAMG
 (reference: rsmedleystevenson/pyamg): multigrid hierarchies over padded-ELL
 sparse operators, jit-compiled V/W/F/AMLI cycles, a fused Krylov suite, and
 host-staged setup with parallel-friendly coarsening algorithms.

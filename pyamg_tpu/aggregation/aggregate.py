@@ -24,7 +24,7 @@ __all__ = ["standard_aggregation", "naive_aggregation", "lloyd_aggregation",
 def grid_aggregation(grid, block=None):
     """Block aggregation on a structured grid: aggregate (i1//b1, ..., id//bd).
 
-    The TPU-native structured coarsening: the coarse grid is again a
+    The gather-free structured coarsening: the coarse grid is again a
     row-major grid, so every Galerkin coarse operator stays a fixed-offset
     stencil matrix (DIA format) and transfers are reshape/repeat ops — no
     gathers anywhere in the cycle.  Semantically a 'predefined' aggregation

@@ -11,7 +11,7 @@ tentative prolongator), builds the coarse operator, recurses, and keeps
 adding targets until the sub-hierarchy's measured convergence factor clears
 ``conv_tol`` or the iteration caps hit.
 
-TPU-native notes: the per-aggregate Ritz decompositions run as ONE batched
+Device notes: the per-aggregate Ritz decompositions run as ONE batched
 ``eigh`` over zero-padded aggregate blocks (the same batching pattern as
 ``fit_candidates``); trial convergence tests run host V-cycles so no device
 programs are compiled for throwaway hierarchies — only the final accepted

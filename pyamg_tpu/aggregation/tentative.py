@@ -3,9 +3,9 @@
 Reference parity: pyamg/aggregation/tentative.py (``fit_candidates`` :19 →
 amg_core fit_candidates, smoothed_aggregation.h:323,475,488).
 
-TPU-native design: instead of the reference's serial per-aggregate modified
+Device design: instead of the reference's serial per-aggregate modified
 Gram-Schmidt, aggregates are padded to a common size and factored with ONE
-batched ``jnp.linalg.qr`` — an MXU-batched dense op (SURVEY.md §7.3).
+batched ``jnp.linalg.qr`` — one batched dense op (SURVEY.md §7.3).
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 // Host-side native kernels for the setup phase.
 //
 // The reference implements its compute core as C++ headers bound via SWIG
-// (pyamg/amg_core/*.h).  In this framework the *solve phase* runs on TPU via
-// XLA; what remains natively hot on the host are the inherently sequential
+// (pyamg/amg_core/*.h).  In this framework the *solve phase* runs on the
+// accelerator via XLA; what remains natively hot on the host are the inherently sequential
 // setup-phase graph algorithms.  These are fresh implementations (flat
 // extern-C API over raw CSR arrays, bound via ctypes) of:
 //

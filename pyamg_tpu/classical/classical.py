@@ -83,7 +83,7 @@ def ruge_stuben_solver(A, strength=("classical", {"theta": 0.25}),
             break   # coarsening stalled
 
     # finalize: best device representation per operator (DIA/dense/ELL);
-    # op_dtype (TPU addition, same as smoothed_aggregation_solver) builds
+    # op_dtype (device addition, same as smoothed_aggregation_solver) builds
     # the device hierarchy directly in that dtype for mixed-precision use
     from ..sparse import device_operator
 

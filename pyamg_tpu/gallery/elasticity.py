@@ -134,7 +134,7 @@ def linear_elasticity(grid, spacing=None, E=1e5, nu=0.3, format=None):
     B[1::2, 2] = px.reshape(-1)
 
     A = A.asformat(format) if format else A
-    A.grid = grid       # node-grid metadata for the structured TPU path
+    A.grid = grid       # node-grid metadata for the structured device path
     return A, B
 
 

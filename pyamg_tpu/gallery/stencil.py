@@ -100,7 +100,7 @@ def stencil_grid(S, grid, dtype=None, format=None):
     fmt = format or "csr"
     A = A.asformat(fmt)
     try:
-        A.grid = grid       # structured-grid metadata for the TPU fast path
+        A.grid = grid       # structured-grid metadata for the device fast path
     except AttributeError:
         pass
     return A

@@ -1,6 +1,6 @@
 """Distributed CLASSICAL (Ruge-Stuben) hierarchy construction over a mesh.
 
-Round-4: the same host-integer / SPMD-numeric split that
+The same host-integer / SPMD-numeric split that
 ``general_sa_setup_sharded`` gives the SA family, applied to the classical
 constructor (role of the reference's serial pipeline,
 pyamg/classical/classical.py:120-187):
@@ -46,9 +46,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from .sharding import make_mesh, pad_to, _pad_ell, _place_ell, ShardedSolver
 from .setup import _pattern_csr, _ell_smoother
 from ..sparse import SparseELL
-from ..sparse.spgemm_device import (masked_spgemm_ell,
-                                    masked_spgemm_auto,
-                                    ell_transpose_onto)
+from ..sparse.spgemm_device import masked_spgemm_ell, ell_transpose_onto
 from ..multilevel import Level
 from ..relaxation.device import SmootherData
 
@@ -183,7 +181,7 @@ def _enc_csr(rows, cols, slots, shape):
     return M
 
 
-def _mesh_masked_power(mesh, axis_name, nd, mm=masked_spgemm_ell):
+def _mesh_masked_power(mesh, axis_name, nd):
     """Mesh replacement for strength._masked_power: every squaring of
     (I - cD^{-1}A)^T runs as a pattern-masked device SpGEMM over the mesh
     (host keeps only the symbolic patterns); one D2H per squaring."""
@@ -204,7 +202,7 @@ def _mesh_masked_power(mesh, axis_name, nd, mm=masked_spgemm_ell):
                                         n_pad), mesh, axis_name)
             pat_ell = _place_ell(SparseELL.from_scipy(pat, dtype=np.float32),
                                  mesh, axis_name)
-            out = mm(M_ell, M_ell, pat_ell)
+            out = masked_spgemm_ell(M_ell, M_ell, pat_ell)
             M = out.to_scipy()[:n, :n].tocsr()
             M.sort_indices()
         if nsquare == 0:
@@ -230,8 +228,7 @@ def classical_setup_sharded(A, mesh=None, n_devices=None,
                             smoother=("multicolor_gauss_seidel",
                                       {"iterations": 1,
                                        "sweep": "symmetric"}),
-                            dtype=None, max_levels=10, max_coarse=500,
-                            spgemm="auto"):
+                            dtype=None, max_levels=10, max_coarse=500):
     """Ruge-Stuben setup with the numeric phase distributed over a mesh.
 
     Host keeps the integer graph stages (strength thresholding, the C/F
@@ -240,12 +237,6 @@ def classical_setup_sharded(A, mesh=None, n_devices=None,
     evolution-SOC masked SpGEMMs, interpolation values, P^T, and the
     Galerkin RAP (see module docstring for the reference roles).  Returns
     a :class:`~pyamg_tpu.parallel.sharding.ShardedSolver`.
-
-    ``spgemm="auto"`` routes single-device products through the Pallas
-    SpGEMM kernels (sparse/spgemm_dia.py, sparse/spgemm_pallas.py; the
-    irregular R·AP leg is bf16x3, ~1e-5 relative); ``"xla"`` keeps every
-    product on the exact-f32 gather formulation (and is always used on
-    multi-device meshes, keeping the machine-exact-vs-host pins).
     """
     import scipy.sparse as sp
     from ..strength import (classical_strength_of_connection,
@@ -261,7 +252,6 @@ def classical_setup_sharded(A, mesh=None, n_devices=None,
         axis_name = mesh.axis_names[0]
     nd = mesh.devices.size
     dt = np.dtype(dtype or np.float32)
-    mm = masked_spgemm_auto if spgemm == "auto" else masked_spgemm_ell
 
     s_name, s_kw = unpack_arg(strength)
     cf_name, cf_kw = unpack_arg(CF)
@@ -284,7 +274,7 @@ def classical_setup_sharded(A, mesh=None, n_devices=None,
         if s_name in ("evolution", "ode"):
             return evolution_strength_of_connection(
                 A_h, _masked_power_impl=_mesh_masked_power(
-                    mesh, axis_name, nd, mm), **s_kw)
+                    mesh, axis_name, nd), **s_kw)
         if s_name is None:
             return A_h.copy()
         raise ValueError("distributed classical setup supports strength in "
@@ -392,13 +382,13 @@ def classical_setup_sharded(A, mesh=None, n_devices=None,
                              cols=patSC_ell.cols,
                              row_nnz=patSC_ell.row_nnz,
                              shape=patSC_ell.shape)
-            denom = mm(Pind, SCT_ell, patSF_ell)
+            denom = masked_spgemm_ell(Pind, SCT_ell, patSF_ell)
             Bd, lump = _std_distribute(SFd, denom.data,
                                        patSF_ell.valid_mask())
             B_ell = SparseELL(data=Bd, cols=patSF_ell.cols,
                               row_nnz=patSF_ell.row_nnz,
                               shape=patSF_ell.shape)
-            contrib = mm(B_ell, SC_ell, patSC_ell)
+            contrib = masked_spgemm_ell(B_ell, SC_ell, patSC_ell)
             w = SCd + contrib.data
             diag = _std_diag(A_ell.data, A_ell.cols, valid, SCd, SFd, lump)
 
@@ -436,8 +426,8 @@ def classical_setup_sharded(A, mesh=None, n_devices=None,
         patAc_ell = _place_ell(SparseELL.from_scipy(patAc, dtype=dt),
                                mesh, axis_name)
         R_ell = ell_transpose_onto(P_ell, patR_ell)
-        AP = mm(A_ell, P_ell, patAP_ell)
-        Ac_ell = mm(R_ell, AP, patAc_ell)
+        AP = masked_spgemm_ell(A_ell, P_ell, patAP_ell)
+        Ac_ell = masked_spgemm_ell(R_ell, AP, patAc_ell)
 
         # ---- the one numeric D2H: coarse values for the next level ------
         Ac_host = Ac_ell.to_scipy()[:ncp, :ncp].tocsr()

@@ -9,8 +9,7 @@ whole fixed-pattern CG as ONE jitted SPMD program over row-sharded
 padded-ELL slabs:
 
 * the flop carrier ``A @ D`` (D = search direction on the pattern) is a
-  pattern-masked device SpGEMM (``masked_spgemm_ell``; the Pallas banded
-  kernel on a single chip via ``mm=masked_spgemm_auto``),
+  pattern-masked device SpGEMM (``masked_spgemm_ell``),
 * the constraint projection's per-entry B gather is STRUCTURE-static, so
   ``B[pattern.cols]`` is gathered once on the host and shipped as K
   component slabs (never a device gather, never a trailing tiny axis —
@@ -38,9 +37,9 @@ from ..sparse.spgemm_device import masked_spgemm_ell, sentinel_cols
 __all__ = ["energy_smooth_sharded"]
 
 
-@partial(jax.jit, static_argnames=("maxiter", "mm"))
+@partial(jax.jit, static_argnames=("maxiter",))
 def _energy_cg(Ad, Ac, A_nnz, tvals, pat_cols, pat_nnz, shape_r, Bg, G,
-               dinv, fmask, tol, *, maxiter, mm):
+               dinv, fmask, tol, *, maxiter):
     """Whole fixed-pattern energy CG as one program.
 
     Bg: (K, n_pad, w) per-slot coarse-candidate components;
@@ -55,7 +54,7 @@ def _energy_cg(Ad, Ac, A_nnz, tvals, pat_cols, pat_nnz, shape_r, Bg, G,
     def product(vals):
         D = SparseELL(data=vals, cols=pat_cols, row_nnz=pat_nnz,
                       shape=shape_r)
-        return mm(A_ell, D, pat_ell, out_cols).data
+        return masked_spgemm_ell(A_ell, D, pat_ell, out_cols).data
 
     def project(vals):
         if fmask is not None:
@@ -92,7 +91,7 @@ def _energy_cg(Ad, Ac, A_nnz, tvals, pat_cols, pat_nnz, shape_r, Bg, G,
 
 
 def energy_smooth_sharded(A_ell, T_host, C_host, B_coarse, mesh, axis_name,
-                          mm=masked_spgemm_ell, degree=1, maxiter=4,
+                          degree=1, maxiter=4,
                           tol=1e-8, weighting="local", fmask_host=None,
                           PI_host=None, dt=np.float32):
     """Energy-minimized P on the mesh; returns (P_ell, pattern_csr).
@@ -178,7 +177,7 @@ def energy_smooth_sharded(A_ell, T_host, C_host, B_coarse, mesh, axis_name,
                        pat_ell.cols, pat_ell.row_nnz,
                        (n_pad, nc_pad), Bg_d, G_d, dinv, fmask_d,
                        jnp.asarray(tol, dtype=tvals.dtype),
-                       maxiter=int(maxiter), mm=mm)
+                       maxiter=int(maxiter))
     if PI_host is not None:
         # Tout = I_F Tout + P_I  (P_I's slots live inside the pattern)
         PI = sp.csr_matrix(PI_host).astype(dt)

@@ -2,9 +2,9 @@
 
 The plain sharded gather-ELL SpMV (``x[cols]`` with ``x`` row-sharded)
 makes XLA all-gather the ENTIRE vector to every device before the gather —
-the round-4 halo census measured 9.8 MB on the wire per classical solve
-program where the analytic halo is 56 KB (benchmarks/results/
-sharded_cpu8.json).  This module closes that gap: each shard statically
+the collective census of ``benchmarks/suite.py --sharded`` counts megabytes
+on the wire per classical solve program where the analytic halo is tens of
+kilobytes.  This module closes that gap: each shard statically
 knows which out-of-shard entries its rows touch, packs exactly those into
 a fixed-width buffer, and one small ``all_gather`` of the packs replaces
 the full-vector broadcast.
@@ -12,8 +12,8 @@ the full-vector broadcast.
 Reference parity: the reference is serial (SURVEY.md §2.3) — this is the
 distributed-SpMV design a parallel AMG needs (the classic "communicate the
 halo, not the vector" pattern of distributed sparse solvers), expressed
-TPU-natively as a ``shard_map`` over the mesh with one tiled
-``lax.all_gather`` collective riding ICI.
+as a ``shard_map`` over the mesh with one tiled ``lax.all_gather``
+collective between the devices.
 
 Value contract: the remapped gather reads EXACTLY the values the global
 gather read (pinned in tests/test_parallel.py), so the SpMV differs from
@@ -46,10 +46,7 @@ from typing import Tuple
 import numpy as np
 import jax
 import jax.numpy as jnp
-try:                                    # jax >= 0.8
-    from jax import shard_map
-except ImportError:                     # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 __all__ = ["HaloELL", "build_halo_ell"]
@@ -166,7 +163,8 @@ class HaloELL:
             pack = Xl[pidx[0]]                              # (H, k)
             halo = jax.lax.all_gather(pack, ax, tiled=True)  # (nd*H, k)
             XX = jnp.concatenate([Xl, halo], axis=0)
-            return jnp.einsum("nw,nwk->nk", data, XX[cols])
+            return jnp.einsum("nw,nwk->nk", data, XX[cols],
+                              precision=jax.lax.Precision.HIGHEST)
 
         return run(self.data, self.cols, self.pack_idx, X)
 

@@ -39,9 +39,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from .sharding import make_mesh, pad_to, _pad_ell, _place_ell, ShardedSolver
 from ..sparse import SparseELL
 from ..sparse.ell import ell_matvec
-from ..sparse.spgemm_device import (masked_spgemm_ell,
-                                    masked_spgemm_auto,
-                                    ell_transpose_onto)
+from ..sparse.spgemm_device import masked_spgemm_ell, ell_transpose_onto
 from ..multilevel import Level
 from ..relaxation.device import SmootherData
 
@@ -143,10 +141,10 @@ def general_sa_setup_sharded(A, B=None, mesh=None, n_devices=None,
                              smoother=("multicolor_gauss_seidel",
                                        {"iterations": 1,
                                         "sweep": "symmetric"}),
-                             dtype=None, rho_iters=30, spgemm="auto"):
+                             dtype=None, rho_iters=30):
     """Smoothed-aggregation setup with the NUMERIC phase distributed.
 
-    TPU-native split of the reference's serial setup pipeline
+    Host/device split of the reference's serial setup pipeline
     (aggregation/aggregation.py:293-430): the host keeps only the
     integer-graph decisions — strength-of-connection thresholding,
     greedy aggregation, tentative-pattern fitting, graph coloring, and
@@ -182,9 +180,6 @@ def general_sa_setup_sharded(A, B=None, mesh=None, n_devices=None,
         axis_name = mesh.axis_names[0]
     nd = mesh.devices.size
     dt = np.dtype(dtype or np.float32)
-    # "auto" routes single-device products through the Pallas SpGEMM
-    # kernels; multi-device meshes always take the exact XLA path
-    mm = masked_spgemm_auto if spgemm == "auto" else masked_spgemm_ell
 
     def unpack(arg):
         if isinstance(arg, tuple):
@@ -277,7 +272,7 @@ def general_sa_setup_sharded(A, B=None, mesh=None, n_devices=None,
             from .energy import energy_smooth_sharded
 
             P_ell, patP = energy_smooth_sharded(
-                A_ell, T, C, Bc, mesh, axis_name, mm=mm, dt=dt,
+                A_ell, T, C, Bc, mesh, axis_name, dt=dt,
                 degree=int(p_kw.get("degree", 1)),
                 maxiter=int(p_kw.get("maxiter", 4)),
                 tol=float(p_kw.get("tol", 1e-8)),
@@ -314,10 +309,10 @@ def general_sa_setup_sharded(A, B=None, mesh=None, n_devices=None,
         else:
             T_ell = _place_ell(_pad_ell(SparseELL.from_scipy(T, dtype=dt),
                                         n_pad, nc_pad), mesh, axis_name)
-            P_ell = mm(S_ell, T_ell, patP_ell)
+            P_ell = masked_spgemm_ell(S_ell, T_ell, patP_ell)
         R_ell = ell_transpose_onto(P_ell, patR_ell)
-        AP = mm(A_ell, P_ell, patAP_ell)
-        Ac_ell = mm(R_ell, AP, patAc_ell)
+        AP = masked_spgemm_ell(A_ell, P_ell, patAP_ell)
+        Ac_ell = masked_spgemm_ell(R_ell, AP, patAc_ell)
 
         # ---- the one numeric D2H: coarse values for the next level ------
         Ac_host = Ac_ell.to_scipy()[:nc, :nc].tocsr()
@@ -392,7 +387,6 @@ def rootnode_setup_sharded(A, B=None, mesh=None, n_devices=None,
         axis_name = mesh.axis_names[0]
     nd = mesh.devices.size
     dt = np.dtype(dtype or np.float32)
-    mm = masked_spgemm_auto
 
     def unpack(arg):
         if isinstance(arg, tuple):
@@ -449,7 +443,7 @@ def rootnode_setup_sharded(A, B=None, mesh=None, n_devices=None,
 
         P_ell, patP = energy_smooth_sharded(
             A_ell, sp.csr_matrix(T), sp.csr_matrix(C), B_coarse, mesh,
-            axis_name, mm=mm, dt=dt,
+            axis_name, dt=dt,
             degree=int(p_kw.get("degree", 1)),
             maxiter=int(p_kw.get("maxiter", 4)),
             tol=float(p_kw.get("tol", 1e-8)),
@@ -468,8 +462,8 @@ def rootnode_setup_sharded(A, B=None, mesh=None, n_devices=None,
         patAc_ell = _place_ell(SparseELL.from_scipy(patAc, dtype=dt),
                                mesh, axis_name)
         R_ell = ell_transpose_onto(P_ell, patR_ell)
-        AP = mm(A_ell, P_ell, patAP_ell)
-        Ac_ell = mm(R_ell, AP, patAc_ell)
+        AP = masked_spgemm_ell(A_ell, P_ell, patAP_ell)
+        Ac_ell = masked_spgemm_ell(R_ell, AP, patAc_ell)
 
         Ac_host = Ac_ell.to_scipy()[:nc, :nc].tocsr()
         Ac_host.eliminate_zeros()
@@ -513,8 +507,7 @@ def rootnode_setup_sharded(A, B=None, mesh=None, n_devices=None,
 def _mesh_candidate_relax(Ad, Ac, dinv, x, omega, sweeps=8):
     """Weighted-Jacobi candidate relaxation on A x = 0 (SPMD): the mesh
     form of the reference's initial-stage relaxation (adaptive.py:363) —
-    each sweep renormalizes so strong sweeps cannot underflow x to 0
-    (ROUND3 lesson)."""
+    each sweep renormalizes so strong sweeps cannot underflow x to 0."""
     def body(_, x):
         x = x - omega * dinv * ell_matvec(Ad, Ac, x)
         nrm = jnp.linalg.norm(x)

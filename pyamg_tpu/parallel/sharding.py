@@ -3,7 +3,7 @@
 The reference is a serial library (SURVEY.md §2.3); this module is the
 designed-fresh distributed layer (§7.5): every level's operators and vectors
 are 1-D row-sharded over a ``jax.sharding.Mesh``; the padded-ELL SpMV's
-``x[cols]`` gather makes XLA insert the halo/all-gather collectives over ICI
+``x[cols]`` gather makes XLA insert the halo/all-gather collectives
 automatically, reductions become ``psum``-style collectives inside compiled
 Krylov loops, and coarse levels below a size threshold are replicated (the
 classic AMG agglomeration trick — here the dense coarse solve is replicated).
@@ -392,7 +392,7 @@ class StructuredShardedSolver:
     Instead of rebuilding gather-ELL operators, the existing device pytree
     is re-placed with ``NamedSharding``s (vectors/diagonals split over rows;
     small coarse operators replicated).  XLA turns the DIA shifts into
-    halo ``collective_permute``s over ICI and partitions the grid
+    halo ``collective_permute``s and partitions the grid
     reshape/repeat/pool transfers.  Requires the leading grid dimension of
     every sharded level to be divisible by the device count (levels that
     are not divisible are replicated — they are small).

@@ -1,4 +1,4 @@
-"""Relaxation: host reference smoothers + device (TPU) smoother kernels."""
+"""Relaxation: host reference smoothers + device smoother kernels."""
 
 from . import relaxation, device, smoothing, chebyshev
 from .relaxation import (gauss_seidel, jacobi, sor, polynomial, block_jacobi,

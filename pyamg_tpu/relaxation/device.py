@@ -1,6 +1,6 @@
 """Device-side (jit-compiled) smoother kernels over padded-ELL operators.
 
-This is the TPU execution path for the smoother menu of
+This is the device execution path for the smoother menu of
 pyamg/relaxation/relaxation.py.  Design (SURVEY.md §7.2): sequential
 Gauss-Seidel is hostile to SIMD, so the device family is
 
@@ -28,6 +28,12 @@ import jax
 import jax.numpy as jnp
 
 from ..sparse import SparseELL
+
+# f32 contractions with a free (non-contracting) dimension pin full
+# precision: a GPU may run such a dot as a TF32 GEMM at DEFAULT.  A
+# vector-vector dot (jnp.vdot) needs no pin: XLA's GPU compiler turns it
+# into a multiply and a reduction, which keep f32.
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @jax.tree_util.register_pytree_node_class
@@ -146,7 +152,7 @@ def multicolor_gs_gather_step(sm: "SmootherData", x, b, reverse=False):
         valid = (rows >= 0).astype(x.dtype)
         safe = jnp.maximum(rows, 0)
         Ax = jnp.einsum("rw,rw->r", sm.color_data[idx],
-                        x[sm.color_cols[idx]])
+                        x[sm.color_cols[idx]], precision=_HIGHEST)
         r = b[safe] - Ax
         upd = valid * sm.dinv[safe] * r
         return x.at[safe].add(upd)
@@ -167,7 +173,8 @@ def block_jacobi_step(A: SparseELL, block_dinv, x, b, omega=1.0):
     """x + omega * blockdiag(D)^{-1} (b - A x), batched over blocks."""
     bs = block_dinv.shape[-1]
     r = (b - A.matvec(x)).reshape(-1, bs)
-    dx = jnp.einsum("nij,nj->ni", block_dinv, r).reshape(-1)
+    dx = jnp.einsum("nij,nj->ni", block_dinv, r,
+                    precision=_HIGHEST).reshape(-1)
     return x + omega * dx
 
 
@@ -175,7 +182,7 @@ def batched_tridiag_pcr(dl, d, du, B):
     """Batched tridiagonal solve by parallel cyclic reduction.
 
     dl/d/du/B: (nlines, L).  log2(L) fully-vectorized elimination rounds —
-    the TPU-native replacement for per-line Thomas sweeps.  Out-of-range
+    the data-parallel replacement for per-line Thomas sweeps.  Out-of-range
     neighbors are identity rows via zero-padding.
     """
     L = d.shape[-1]
@@ -219,11 +226,9 @@ def _binv_small(M):
 
     ``M`` is in component layout (q, q, ...): block indices LEADING, the
     large batch axes trailing.  ``jnp.linalg.solve`` on (batch, 2, 2)
-    lowers to a pivoted LU kernel that is scalar-unit bound on TPU —
-    measured ~500 ms per call at (171, 512, 2, 2) inside the block-PCR
-    rounds, which made one blocked zebra application cost 1.1 s and a K=2
-    V-cycle 3.3 s (long enough to trip the device watchdog inside a
-    chunked solve).  The adjugate form is pure elementwise VPU work.
+    lowers to a pivoted LU kernel with a serial loop per block, slow
+    inside the block-PCR rounds.  The adjugate form is pure elementwise
+    work.
     q >= 4 falls back to linalg.inv on a transposed view."""
     q = M.shape[0]
     if q == 1:
@@ -264,11 +269,11 @@ def batched_block_tridiag_pcr(dl, d, du, B):
 
     COMPONENT LAYOUT: dl/d/du are (q, q, nlines, L) node blocks and B is
     (q, nlines, L) — the tiny q x q block indices lead and the large
-    (nlines, L) plane trails.  With the blocks trailing, TPU tiling pads
-    each (2, 2) to the (8, 128) register tile: a 64x HBM expansion that
-    OOMed the 1024^2 K=2 hierarchy (342 MB per temp).  In this layout the
-    tile applies to (nlines, L) and padding is negligible; all block
-    algebra is unrolled elementwise VPU work over full planes.
+    (nlines, L) plane trails.  A layout whose minor dimensions are the
+    tiny (2, 2) blocks pads badly on a compiler that tiles the two minor
+    axes; in this layout any tiling applies to (nlines, L) and padding is
+    negligible; all block algebra is unrolled elementwise work over full
+    planes.
 
     Same log2(L) elimination rounds as the scalar kernel with q x q block
     algebra — the q-dof-per-node levels of a K-candidate structured
@@ -293,11 +298,11 @@ def batched_block_tridiag_pcr(dl, d, du, B):
         return jnp.concatenate([pad, a[..., :s]], axis=-1)
 
     # The block contractions are UNROLLED into explicit elementwise
-    # multiply-adds: an einsum here lowers to dot_general, which the TPU
-    # MXU evaluates with bf16 operand rounding by default — the cyclic
-    # reduction relies on exact f32 cancellation of the eliminated
-    # couplings, and bf16 rounding compounds over the log2(L) rounds into
-    # a completely wrong solve (measured: resid 2e4 vs 1.5e-2 at 512^2).
+    # multiply-adds: an einsum here lowers to dot_general, which a matrix
+    # unit may evaluate with reduced operand precision at DEFAULT precision
+    # (bf16 or TF32) — the cyclic reduction relies on exact f32
+    # cancellation of the eliminated couplings, and such rounding compounds
+    # over the log2(L) rounds into a completely wrong solve.
     def bmm(X, Y):
         return jnp.stack([
             jnp.stack([
@@ -327,7 +332,7 @@ def line_relaxation_step(A, sm: "SmootherData", x, b, zebra_phase=None):
     """Damped line-Jacobi (or one zebra half-sweep): exact tridiagonal
     solves along the ``line_axis`` grid direction.
 
-    The TPU-native counterpart of line/block Gauss-Seidel for anisotropic
+    The data-parallel counterpart of line/block Gauss-Seidel for anisotropic
     problems: all lines solve simultaneously via cyclic reduction.  A 5-D
     ``line_tri`` marks a node-blocked level (q dofs per grid node): lines
     are block-tridiagonal and solve via the block kernel.
@@ -374,13 +379,14 @@ def schwarz_step(A, subdomain_idx, subdomain_inv, x, b, omega=1.0):
     subdomains containing it (restricted-additive-Schwarz weighting, which
     keeps the additive iteration contractive).
 
-    Batched dense subdomain solves on the MXU + one gather/scatter pair.
+    Batched dense subdomain solves + one gather/scatter pair.
     """
     r = b - A.matvec(x)
     safe = jnp.maximum(subdomain_idx, 0)
     valid = (subdomain_idx >= 0).astype(r.dtype)
     r_loc = r[safe] * valid                                 # (n_dom, L)
-    dx_loc = jnp.einsum("dij,dj->di", subdomain_inv, r_loc) * valid
+    dx_loc = jnp.einsum("dij,dj->di", subdomain_inv, r_loc,
+                        precision=_HIGHEST) * valid
     dx = jnp.zeros_like(x).at[safe.reshape(-1)].add(
         (dx_loc * valid).reshape(-1))
     count = jnp.zeros_like(x).at[safe.reshape(-1)].add(valid.reshape(-1))
@@ -430,7 +436,7 @@ def _gmres_smoother_step(A, x, b, k=2):
     e1 = jnp.zeros(k + 1, dtype=r.dtype).at[0].set(beta)
     y, *_ = jnp.linalg.lstsq(H, e1)
     Vm = jnp.stack(V[:k])                  # (k, n)
-    return x + Vm.T @ y
+    return x + jnp.matmul(Vm.T, y, precision=_HIGHEST)
 
 
 def jacobi_ne_step(A: SparseELL, AT: SparseELL, dinv_ne, x, b, omega=1.0):
@@ -585,7 +591,8 @@ def _multicolor_block_gs(A, sm, x, b, reverse):
     def body(c, x):
         idx = ncolors - 1 - c if reverse else c
         r = (b - A.matvec(x)).reshape(-1, bs)
-        dx = jnp.einsum("nij,nj->ni", sm.block_dinv, r).reshape(-1)
+        dx = jnp.einsum("nij,nj->ni", sm.block_dinv, r,
+                        precision=_HIGHEST).reshape(-1)
         return x + sm.color_masks[idx] * dx
 
     return jax.lax.fori_loop(0, ncolors, body, x)

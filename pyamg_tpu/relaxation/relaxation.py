@@ -4,7 +4,7 @@ Reference parity: pyamg/relaxation/relaxation.py — every public entry point,
 same in-place ``(A, x, b, ...)`` contract.  These numpy/scipy versions serve
 the *setup phase* (improve_candidates, CR, adaptive bootstraps) and as the
 gold-reference oracle for the device smoothers in
-:mod:`pyamg_tpu.relaxation.device`, which are the TPU execution path.
+:mod:`pyamg_tpu.relaxation.device`, which are the device execution path.
 
 Sequential sweeps (Gauss-Seidel & friends) use sparse triangular solves
 instead of the reference's per-row C loops (relaxation.h:34).

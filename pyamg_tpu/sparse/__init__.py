@@ -1,4 +1,4 @@
-"""TPU-native sparse substrate: padded-ELL and block-ELL containers."""
+"""Device sparse substrate: padded-ELL and block-ELL containers."""
 
 from .ell import SparseELL, ell_matvec
 from .bell import BlockELL

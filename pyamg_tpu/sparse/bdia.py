@@ -6,7 +6,7 @@ grids and Q1 elasticity produce coarse operators that are BSR matrices on
 a stencil pattern (e.g. a 9-point coarse stencil of K x K blocks, K =
 number of near-nullspace candidates / dofs per node).  Storing one dense
 (n_blocks, K, K) array per block diagonal turns the BSR matvec into
-shifted batched small-matrix products: pure VPU multiply-adds, no gathers
+shifted batched small-matrix products: streamed multiply-adds, no gathers
 (replaces the role of scipy BSR, SURVEY.md L1, the way SparseDIA replaces
 CSR).
 """
@@ -157,7 +157,8 @@ class SparseBDIA:
         y = jnp.zeros((nb, K), dtype=jnp.result_type(self.dtype, x.dtype))
         for k, off in enumerate(self.offsets):
             xs = jax.lax.dynamic_slice_in_dim(xpad, lo + off, nb, axis=0)
-            y = y + jnp.einsum("nij,nj->ni", self.blocks[k], xs)
+            y = y + jnp.einsum("nij,nj->ni", self.blocks[k], xs,
+                               precision=jax.lax.Precision.HIGHEST)
         return y.reshape(-1)
 
     def matmat(self, X: jnp.ndarray) -> jnp.ndarray:
@@ -172,7 +173,8 @@ class SparseBDIA:
                       dtype=jnp.result_type(self.dtype, X.dtype))
         for k, off in enumerate(self.offsets):
             Xs = jax.lax.dynamic_slice_in_dim(Xpad, lo + off, nb, axis=0)
-            Y = Y + jnp.einsum("nij,njm->nim", self.blocks[k], Xs)
+            Y = Y + jnp.einsum("nij,njm->nim", self.blocks[k], Xs,
+                               precision=jax.lax.Precision.HIGHEST)
         return Y.reshape(nb * K, m)
 
     def __matmul__(self, x):

@@ -1,10 +1,9 @@
-"""Block padded-ELL (BELL) — TPU-native replacement for BSR.
+"""Block padded-ELL (BELL) — the device replacement for BSR.
 
 The reference uses scipy BSR plus block C++ kernels (``bsr_gauss_seidel``
 relaxation.h:90, ``bsr_jacobi`` relaxation.h:268, ``incomplete_mat_mult_bsr``
 smoothed_aggregation.h:797).  Here a block matrix is stored as a fixed-width
-slab of dense blocks so block ops become *batched dense* ops — exactly what
-the MXU/VPU want.
+slab of dense blocks so block ops become *batched dense* ops.
 
 Layout: ``data[(n_brows, width, bs, bs)]``, ``cols[(n_brows, width)]`` are
 block-column indices, padding blocks are zero with ``cols`` equal to the
@@ -111,7 +110,8 @@ class BlockELL:
         bs = self.blocksize
         xb = x.reshape(self.shape[1] // bs, bs)
         gathered = xb[self.cols]                                # (nb, w, bs)
-        yb = jnp.einsum("nwij,nwj->ni", self.data, gathered)
+        yb = jnp.einsum("nwij,nwj->ni", self.data, gathered,
+                        precision=jax.lax.Precision.HIGHEST)
         return yb.reshape(-1)
 
     def __matmul__(self, x):

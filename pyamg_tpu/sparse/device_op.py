@@ -1,7 +1,7 @@
 """Automatic device-format selection for hierarchy operators.
 
-Priority (TPU cost model): DIA (shift-multiply-add, no gathers) → dense
-(MXU matmul) for small operators → padded-ELL gather fallback.
+Priority: DIA (shift-multiply-add, no gathers) → dense (one matmul) for
+small operators → padded-ELL gather fallback.
 """
 
 from __future__ import annotations
@@ -14,10 +14,9 @@ from .linop import DenseOp
 
 __all__ = ["device_operator", "count_diagonals"]
 
-# TPU cost model: a k-offset DIA matvec costs ~k streamed vectors, a dense
-# matvec n^2 MACs on the MXU, an ELL gather ~8 ns/entry on the scalar unit.
-# Gathers lose to DIA up to hundreds of offsets (memory waste permitting)
-# and to dense for n <= ~4k.
+# Cost model: a k-offset DIA matvec streams ~k+2 vectors, a dense matvec
+# n^2 MACs, an ELL matvec a gather per stored entry.  The thresholds below
+# are heuristics that have not been measured on a GPU.
 DIA_MAX_OFFSETS = 512
 DIA_MEM_BUDGET = 10          # accept k*n up to this multiple of nnz
 DIA_MEM_FLOOR = 64_000_000   # ... or up to this many stored entries

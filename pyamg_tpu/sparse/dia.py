@@ -1,11 +1,11 @@
-"""Diagonal-offset (DIA) sparse storage — the TPU fast path.
+"""Diagonal-offset (DIA) sparse storage — the structured fast path.
 
-TPU gathers are scalar-unit bound (~8 ns/element measured on v5e), so the
-gather-based ELL SpMV cannot be the hot path.  Matrices from discretized
+A gather-based ELL SpMV reads its column indices and gathers x: it moves
+more bytes than the values and is a poor hot path.  Matrices from discretized
 PDEs on grids — and their Galerkin coarse operators under grid-block
 aggregation — have entries on a handful of fixed diagonals.  Storing one
 dense vector per diagonal turns SpMV into shifted elementwise multiply-adds:
-pure VPU traffic, no gathers, and under `jax.sharding` the shifts become
+streamed reads, no gathers, and under `jax.sharding` the shifts become
 automatic halo exchanges.
 
 Replaces the role of CSR for structured levels (reference substrate:
@@ -186,23 +186,10 @@ class SparseDIA:
 
     # -- compute --------------------------------------------------------------
     def matvec(self, x: jnp.ndarray) -> jnp.ndarray:
-        """y[i] = sum_k diags[k, i] * x[i + offsets[k]].
-
-        Single-chip TPU dispatches to the fused Pallas kernel (2-D layout,
-        sublane slices + lane rolls); everywhere else (CPU, sharded meshes,
-        unsupported dtypes/shapes) uses the XLA shift-multiply-add, whose
-        shifts become halo collectives under ``jax.sharding``.
-        """
-        from .pallas_kernels import pallas_dia_supported, dia_matvec_pallas
-
-        if (x.dtype == self.dtype
-                and pallas_dia_supported(self.offsets, self.shape,
-                                         self.dtype)):
-            return dia_matvec_pallas(self.diags, self.offsets, x)
-        return self.matvec_xla(x)
-
-    def matvec_xla(self, x: jnp.ndarray) -> jnp.ndarray:
-        """The pure-XLA shift-multiply-add formulation (no gathers)."""
+        """y[i] = sum_k diags[k, i] * x[i + offsets[k]]: x padded once, then
+        k shifted slices feeding one multiply-add chain, which XLA fuses
+        into a single pass; under ``jax.sharding`` the shifts become halo
+        exchanges."""
         n, m = self.shape
         lo = -min(min(self.offsets), 0)
         hi = max(max(self.offsets), 0)

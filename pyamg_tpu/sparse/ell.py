@@ -1,10 +1,10 @@
-"""Padded-ELL sparse matrix container — the TPU-native sparse substrate.
+"""Padded-ELL sparse matrix container — the general sparse substrate.
 
-Design rationale (vs the reference's CSR, pyamg/amg_core/*.h): TPUs want static
-shapes, contiguous vector lanes and gather-friendly layouts.  A padded-ELL
+Design rationale (vs the reference's CSR, pyamg/amg_core/*.h): XLA wants static
+shapes, contiguous vectors and gather-friendly layouts.  A padded-ELL
 layout stores each row's nonzeros in a fixed-width ``(n_rows, width)`` slab so
 every sparse op becomes a dense gather + elementwise + row-reduction that XLA
-maps directly onto the VPU, and SpMV jit-compiles once per shape.
+fuses into one loop, and SpMV jit-compiles once per shape.
 
 Conventions
 -----------
@@ -189,7 +189,8 @@ class SparseELL:
     def matmat(self, X: jnp.ndarray) -> jnp.ndarray:
         """Y = A @ X for dense X of shape (n_cols, k)."""
         gathered = X[self.cols]                      # (n, w, k)
-        return jnp.einsum("nw,nwk->nk", self.data, gathered)
+        return jnp.einsum("nw,nwk->nk", self.data, gathered,
+                          precision=jax.lax.Precision.HIGHEST)
 
     def rmatmat(self, Y: jnp.ndarray) -> jnp.ndarray:
         """X = A.T @ Y for dense Y of shape (n_rows, k)."""

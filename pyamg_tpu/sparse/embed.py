@@ -10,8 +10,7 @@ re-map P's coarse COLUMN j to the fine position of coarse dof j.  On
 grid-ordered problems the embedded pattern is banded (the offsets are the
 fine-grid distances to nearby roots/C-points), so applying P/R costs one
 DIA matvec plus an n_c-sized scatter/gather instead of a gather per stored
-entry (TPU gathers run ~8 ns/element on the scalar unit — the ELL form of a
-1M-row transfer pair is ~45 ms vs ~6 ms embedded).
+entry.
 
 Shared by ``classical/classical.py`` (C-point embedding) and
 ``aggregation/{aggregation,rootnode}.py`` (root embedding); falls back to
@@ -116,11 +115,11 @@ def root_embedded_transfers(lvl, dtype=None, max_offsets=None):
     from .device_op import DENSE_MAX
 
     if P.shape[0] <= DENSE_MAX and P.shape[1] <= DENSE_MAX:
-        return None       # tiny level: device_operator's DenseOp (one MXU
+        return None       # tiny level: device_operator's DenseOp (one
         #                   matmul) beats the DIA scatter/shift form
     if max_offsets is None:
         # small levels tolerate wide bands (the DIA arrays stay tiny while
-        # the ELL alternative pays a scalar-unit gather per stored entry);
+        # the ELL alternative pays a gather per stored entry);
         # large levels keep the tight cap so the bands stay HBM-friendly
         n = P.shape[0]
         max_offsets = 96 if n > 1 << 18 else (256 if n > 1 << 14 else 1024)

@@ -136,9 +136,11 @@ class GridRepeatOp:
         sl = tuple(slice(0, g) for g in self.fine_grid) + (slice(None),)
         y = y[sl].reshape(-1, K)                 # (n_nodes, K)
         if q == 1:
-            return jnp.einsum("nk,nk->n", self.wmap, y)
+            return jnp.einsum("nk,nk->n", self.wmap, y,
+                              precision=jax.lax.Precision.HIGHEST)
         w = self.wmap.reshape(-1, q, K)          # (n_nodes, q, K)
-        return jnp.einsum("nqk,nk->nq", w, y).reshape(-1)
+        return jnp.einsum("nqk,nk->nq", w, y,
+                          precision=jax.lax.Precision.HIGHEST).reshape(-1)
 
     def __matmul__(self, x):
         return self.matvec(jnp.asarray(x))
@@ -250,7 +252,8 @@ class GridPoolOp:
 @jax.tree_util.register_pytree_node_class
 @dataclass(frozen=True)
 class DenseOp:
-    """Small dense operator (coarse transfers / coarse A) — MXU matmul."""
+    """Small dense operator (coarse transfers / coarse A): one matmul at
+    HIGHEST precision (a GPU would otherwise run float32 in TF32)."""
 
     mat: jnp.ndarray
     shape: Tuple[int, int]
@@ -272,10 +275,10 @@ class DenseOp:
         return DenseOp(mat=self.mat.astype(dtype), shape=self.shape)
 
     def matvec(self, x):
-        return self.mat @ x
+        return jnp.matmul(self.mat, x, precision=jax.lax.Precision.HIGHEST)
 
     def __matmul__(self, x):
-        return self.mat @ jnp.asarray(x)
+        return self.matvec(jnp.asarray(x))
 
     def diagonal(self):
         return jnp.diagonal(self.mat)

@@ -1,6 +1,6 @@
 """Device-side numeric SpGEMM over a host-symbolic pattern (padded ELL).
 
-TPU-native split of the Galerkin product (role of the reference's serial
+Host/device split of the Galerkin product (role of the reference's serial
 ``A = R * A * P``, aggregation/aggregation.py:429 / classical/classical.py:187
 via scipy csr_matmat): the *symbolic* phase — integer-only pattern
 construction — is inherently irregular pointer chasing and stays on host,
@@ -30,8 +30,8 @@ import jax.numpy as jnp
 
 from .ell import SparseELL
 
-__all__ = ["masked_spgemm_ell", "masked_spgemm_auto",
-           "pattern_spgemm", "rap_pattern", "sentinel_cols"]
+__all__ = ["masked_spgemm_ell", "pattern_spgemm", "rap_pattern",
+           "sentinel_cols"]
 
 
 @jax.jit
@@ -136,35 +136,3 @@ def ell_transpose_onto(A: SparseELL, pattern: SparseELL) -> SparseELL:
     vals = _transpose_vals(A.data, A.cols, sentinel_cols(pattern))
     return SparseELL(data=vals.astype(A.dtype), cols=pattern.cols,
                      row_nnz=pattern.row_nnz, shape=pattern.shape)
-
-
-# ---------------------------------------------------------------------------
-# kernel router
-# ---------------------------------------------------------------------------
-
-def masked_spgemm_auto(A, B, pattern, out_cols=None):
-    """``masked_spgemm_ell`` routed to the fastest available formulation.
-
-    Single-device TPU: tries the banded-left Pallas kernel (exact f32,
-    ~70× the gather path on 1M-row A@P), then the one-hot MXU kernel
-    (bf16x3, ~1e-5 relative), falling back to the XLA gather formulation.
-    Multi-device meshes and CPU always take the XLA path (bitwise-stable
-    for the machine-exact distributed-setup pins).
-    """
-    from .spgemm_pallas import pallas_spgemm_supported, MaskedSpgemmPlan
-    from .spgemm_dia import BandedSpgemmPlan
-
-    n = A.shape[0]
-    # below ~128k rows a product sits at the dispatch floor either way —
-    # the host plan build would cost more than it saves
-    if n >= (1 << 17) and pallas_spgemm_supported():
-        plan = BandedSpgemmPlan(A, B, pattern)
-        if plan.feasible:
-            return plan(A, B)
-        # the one-hot plan build is O(nnz log nnz) host work (~1 s/M rows);
-        # only worth it for the large irregular-left legs
-        if n >= (1 << 19):
-            plan = MaskedSpgemmPlan(A, B, pattern)
-            if plan.feasible:
-                return plan(A, B)
-    return masked_spgemm_ell(A, B, pattern, out_cols)

@@ -1,6 +1,6 @@
 """Test configuration: run JAX on a virtual 8-device CPU mesh with x64.
 
-The real-TPU path is exercised by bench.py / __graft_entry__.py; tests
+The GPU path is exercised on a card by ``python chip_smoke.py``; tests
 validate numerics (float64) and multi-device sharding on the host platform.
 """
 

@@ -346,7 +346,7 @@ class TestPairwise:
 
 
 class TestDeviceSetupValidation:
-    """Comb-probe RAP exactness guards (ADVICE r1 #2)."""
+    """Comb-probe RAP exactness guards."""
 
     def test_degree_vs_block_guard(self):
         import jax.numpy as jnp
@@ -630,10 +630,10 @@ class TestStructuredMultiCandidate:
     """K>1 structured fast path: K-channel grid transfers + banded coarse
     operators must match the host CSR hierarchy exactly.
 
-    Round 4: blocked banded levels prefer the FLATTENED scalar-DIA form
-    (a uniform-block banded operator is a scalar DIA with n_off*(2q-1)
-    diagonals) so they ride the Pallas halo kernel — measured 57x over
-    the BDIA einsum at 1M DoF; BDIA remains the fallback only."""
+    Blocked banded levels prefer the FLATTENED scalar-DIA form (a
+    uniform-block banded operator is a scalar DIA with n_off*(2q-1)
+    diagonals): a streamed shift-multiply-add instead of the BDIA
+    einsum's block gathers; BDIA remains the fallback only."""
 
     def test_device_ops_match_host(self):
         rng = np.random.default_rng(0)
@@ -646,7 +646,7 @@ class TestStructuredMultiCandidate:
         B = np.stack([np.ones(n), rng.random(n)], axis=1)
         ml = pyamg_tpu.smoothed_aggregation_solver(
             A, B=B, max_coarse=30, improve_candidates=None)
-        # blocked (q>1) grid levels come out in a Pallas-eligible scalar
+        # blocked (q>1) grid levels come out in the flattened scalar
         # form, not the gather/einsum forms
         assert all(isinstance(l.A, (SparseDIA, SparseBDIA, DenseOp))
                    for l in ml.levels)
@@ -775,7 +775,7 @@ class TestAdaptiveRegressions:
         assert np.linalg.norm(b - A @ x) < 1e-6 * np.linalg.norm(b)
 
     def test_k2_full_coarsening_cuts_opc(self):
-        """Round-5 (VERDICT r4 item 4): with zebra line relaxation
+        """With zebra line relaxation
         carrying the strong axis, FULL (3, 3) grid aggregation holds the
         K=2 iteration count (6 at 256^2, 10 vs 11 at 1024^2) while
         cutting opc 4.55 -> 1.90 — below the reference's 2.35 on the
@@ -872,7 +872,7 @@ class TestRootEmbeddedTransfers:
         assert isinstance(ml.levels[0].P, CptProlongOp)
 
     def test_tiny_levels_stay_dense(self):
-        # below DENSE_MAX a single MXU matmul beats the DIA scatter form,
+        # below DENSE_MAX a single matmul beats the DIA scatter form,
         # so root embedding must decline and leave device_operator's choice
         from pyamg_tpu.sparse.linop import DenseOp
         A = poisson((12, 12, 12), format="csr")

@@ -256,8 +256,7 @@ class TestMiscSolve:
 
 class TestReturnResiduals:
     def test_fused_accel_returns_residuals(self):
-        """return_residuals works without an explicit residuals list
-        (ADVICE r1 #3)."""
+        """return_residuals works without an explicit residuals list."""
         A = poisson((24, 24), format="csr")
         ml = pyamg_tpu.smoothed_aggregation_solver(A, max_coarse=20)
         b = np.random.default_rng(0).standard_normal(A.shape[0])
@@ -351,7 +350,7 @@ class TestCompatibleRelaxation:
 
     def test_cr_splitting_converges_aniso(self):
         # CR-driven hierarchy on anisotropic Poisson converges
-        # (VERDICT r2 item 8; quality oracle in the reference's CR paper)
+        # (quality oracle in the reference's CR paper)
         import pyamg_tpu
         from pyamg_tpu.gallery import stencil_grid, diffusion_stencil_2d
 
@@ -387,12 +386,12 @@ class TestAsPreconditionerInterop:
 
 
 class TestClassicalPoisson500IterationParity:
-    """Round-5 pin of the classical_poisson_500 +1-iteration analysis
-    (round-4 VERDICT weak #3).
+    """Pin of the classical_poisson_500 +1-iteration analysis
+    (docs/design.md, "Findings kept from the round notes").
 
     The RS hierarchy is bit-identical to the reference (fingerprint
     tests), yet the suite config takes 8 PCG+V(1,1) iterations to 1e-10
-    where the reference takes 7.  Isolation (ROUND5_NOTES.md): the
+    where the reference takes 7.  Isolation: the
     reference's OWN hierarchy solved with multicolor-ORDERED symmetric
     Gauss-Seidel (gauss_seidel_indexed over a greedy coloring) takes
     exactly 8 iterations at relres 2.368e-11 — matching ours to three

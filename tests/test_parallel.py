@@ -89,8 +89,7 @@ class TestSharded:
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 class TestShardedSmootherFidelity:
-    """Round-2: every smoother kind survives sharding faithfully
-    (VERDICT weak #6)."""
+    """Every smoother kind survives sharding faithfully."""
 
     def test_sharded_zebra_matches_single(self):
         from pyamg_tpu.relaxation.smoothing import change_smoothers
@@ -139,10 +138,10 @@ class TestShardedSmootherFidelity:
         assert np.allclose(x1, x2, atol=1e-7)
 
     def test_sharded_zebra_on_padded_level_matches_single(self):
-        """Round-4 (VERDICT weak #5/next #7): a level whose size does not
+        """A level whose size does not
         divide the mesh is padded by whole grid slabs — tridiagonal
         systems gain decoupled identity rows, so the sharded zebra solve
-        matches the single-chip one instead of raising."""
+        matches the single-device one instead of raising."""
         from pyamg_tpu.relaxation.smoothing import change_smoothers
 
         A = poisson((31, 7), format="csr")      # 217 not divisible by 8
@@ -399,7 +398,7 @@ class TestDistributedGeneralSetup:
 
 
 class TestDistributedClassicalSetup:
-    """Round-4: the CLASSICAL (Ruge-Stuben) setup's numeric phase runs
+    """The CLASSICAL (Ruge-Stuben) setup's numeric phase runs
     distributed — host keeps strength thresholding / C-F splitting /
     interpolation patterns, the mesh runs the evolution-SOC masked
     SpGEMMs, the interpolation values, P^T and the Galerkin RAP

@@ -279,9 +279,9 @@ class TestDeviceSmoothers:
     def test_block_pcr_exact_and_f32_stable_on_long_lines(self):
         # Component layout (q, q, nlines, L): exact vs dense in f64, and
         # f32 must stay accurate over the log2(L) elimination rounds on
-        # realistic anisotropic blocks (round-4: the einsum form lowered
-        # to bf16-rounded dot_general on TPU and destroyed the
-        # cancellation; the kernel must be elementwise-only).
+        # realistic anisotropic blocks (an einsum form lowers to
+        # dot_general, which a matrix unit may round to bf16 or TF32 and
+        # so destroy the cancellation; the kernel is elementwise-only).
         from pyamg_tpu.relaxation.device import batched_block_tridiag_pcr
 
         r = rng()
@@ -368,8 +368,8 @@ class TestDeviceSmoothers:
 
 
 class TestNormalEquationSmoothers:
-    """Round-2: NE/NR device smoothers are genuine (distinct scalings,
-    complex-safe — ADVICE r1 #1, VERDICT weak #7)."""
+    """NE/NR device smoothers are genuine (distinct scalings,
+    complex-safe)."""
 
     def _complex_system(self, n=64):
         A = poisson((n,), format="csr").astype(complex)

@@ -147,7 +147,7 @@ class TestDistanceMeasures:
 
 
 class TestSetupNativeKernels:
-    """Round-4 host-setup kernels must be bit-identical to the scipy/numpy
+    """Native host-setup kernels must be bit-identical to the scipy/numpy
     idioms they replace (hierarchy fingerprints depend on them)."""
 
     def test_pattern_values_matches_multiply(self):

@@ -408,8 +408,8 @@ class TestBSRUtils:
 
 class TestCheckpointDeviceBuilt:
     def test_device_built_hierarchy_roundtrip(self, tmp_path):
-        """structured_sa_setup hierarchies (no host twins) serialize too
-        (ADVICE r1 #4)."""
+        """structured_sa_setup hierarchies (no host twins) serialize
+        too."""
         import jax.numpy as jnp
         from pyamg_tpu.aggregation import structured_sa_setup
         from pyamg_tpu.util import save_hierarchy, load_hierarchy
